@@ -4,7 +4,7 @@ Reference: example/samgraph/sgnn_dgl/train_*.py — samgraph does sampling
 only; feature extraction happens in torch via ``load_subtensor``
 (torch/adapter.py:170-179). Here the app drives fgnn_tpu.session for
 sampling and gathers features/labels from arrays it owns, then trains a
-Flax model — demonstrating that the sampler is usable standalone.
+GraphSAGE model — demonstrating that the sampler is usable standalone.
 """
 from __future__ import annotations
 

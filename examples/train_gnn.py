@@ -2,9 +2,9 @@
 
 Replaces the reference's per-model process-orchestration scripts
 (example/samgraph/multi_gpu/train_{gcn,graphsage,pinsage}.py,
-example/samgraph/sgnn/*, example/samgraph/train_*.py): on TPU the
+example/samgraph/sgnn/*, example/samgraph/train_*.py): the reference's
 fork-per-GPU + mp.Barrier machinery becomes mesh role assignment inside
-one process, so a single app covers arch1 (one chip), arch5 (factored)
+one process, so a single app covers arch1 (one device), arch5 (factored)
 and arch6 (SGNN).
 
 Emits the reference's machine-parseable result lines
@@ -26,19 +26,49 @@ from examples.common_config import (
     load_app_dataset,
     print_run_config,
 )
-from fgnn_tpu.config import RunArch
+from fgnn_tpu.config import MODEL_SAMPLE_TYPE as DEFAULT_SAMPLE, RunArch
 from fgnn_tpu.utils.logging import log_test_result
 from fgnn_tpu.utils.profiler import Profiler
 
-from exp.common.predict import MODEL_SAMPLE_TYPE as DEFAULT_SAMPLE
 
-
-def main():
+def parse_args(argv=None):
     p = argparse.ArgumentParser("fgnn_tpu training app")
     p.add_argument("--model", default="graphsage",
                    choices=list(DEFAULT_SAMPLE))
     add_common_arguments(p)
-    args = p.parse_args()
+    return p.parse_args(argv)
+
+
+def build_engine(cfg, ds):
+    """The engine for ``cfg.arch``: arch1 one device, arch5 factored
+    (optionally switcher or async), arch6 SGNN, arch0 host sampling."""
+    if cfg.arch == RunArch.ARCH5:
+        if cfg.have_switcher:
+            from fgnn_tpu.parallel.switcher import SwitcherEngine
+
+            return SwitcherEngine(cfg, ds)
+        if cfg.async_train:
+            from fgnn_tpu.parallel.async_dp import AsyncFactoredEngine
+
+            return AsyncFactoredEngine(cfg, ds)
+        from fgnn_tpu.parallel.factored import FactoredEngine
+
+        return FactoredEngine(cfg, ds)
+    if cfg.arch == RunArch.ARCH6:
+        from fgnn_tpu.parallel.factored import SGNNEngine
+
+        return SGNNEngine(cfg, ds)
+    if cfg.arch == RunArch.ARCH0:
+        from fgnn_tpu.host_engine import HostSamplingEngine
+
+        return HostSamplingEngine(cfg, ds)
+    from fgnn_tpu.engine import OneChipEngine
+
+    return OneChipEngine(cfg, ds)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     cfg = build_run_config(args, args.model, DEFAULT_SAMPLE[args.model])
     print_run_config(cfg)
@@ -48,31 +78,7 @@ def main():
     ds = load_app_dataset(args)
 
     t_init = time.time()
-    if cfg.arch == RunArch.ARCH5:
-        if cfg.have_switcher:
-            from fgnn_tpu.parallel.switcher import SwitcherEngine
-
-            eng = SwitcherEngine(cfg, ds)
-        elif cfg.async_train:
-            from fgnn_tpu.parallel.async_dp import AsyncFactoredEngine
-
-            eng = AsyncFactoredEngine(cfg, ds)
-        else:
-            from fgnn_tpu.parallel.factored import FactoredEngine
-
-            eng = FactoredEngine(cfg, ds)
-    elif cfg.arch == RunArch.ARCH6:
-        from fgnn_tpu.parallel.factored import SGNNEngine
-
-        eng = SGNNEngine(cfg, ds)
-    elif cfg.arch == RunArch.ARCH0:
-        from fgnn_tpu.host_engine import HostSamplingEngine
-
-        eng = HostSamplingEngine(cfg, ds)
-    else:
-        from fgnn_tpu.engine import OneChipEngine
-
-        eng = OneChipEngine(cfg, ds)
+    eng = build_engine(cfg, ds)
     init_time = time.time() - t_init
     log_test_result("init_time", f"{init_time:.4f}")
 

@@ -38,6 +38,10 @@ def main():
     p.add_argument("--cpu-mesh", action="store_true")
     args = p.parse_args()
 
+    from fgnn_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
+
     if args.cpu_mesh:
         os.environ["JAX_PLATFORMS"] = "cpu"
         import jax

@@ -24,7 +24,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from exp.common.runner import (cpu_mesh_meta, run_app, tunnel_meta,
+from exp.common.runner import (cpu_mesh_meta, run_app,
                                write_json, write_table)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -74,7 +74,7 @@ def main():
         r.config["case"] = tag
         results.append(r)
 
-    meta = cpu_mesh_meta(8) if args.cpu_mesh else tunnel_meta()
+    meta = cpu_mesh_meta(8) if args.cpu_mesh else None
     write_table(results, ["case", "epoch_time", "epoch_time:min"],
                 os.path.join(HERE, "fig13.dat"), meta=meta)
     write_json(results, os.path.join(HERE, "fig13.json"), meta=meta)

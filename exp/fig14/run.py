@@ -15,8 +15,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from exp.common.predict import (MODEL_SAMPLE_TYPE, annotate_prediction,
-                               config_sig)
+from fgnn_tpu.config import MODEL_SAMPLE_TYPE
 from exp.common.runner import (cpu_mesh_meta, run_app, write_json,
                                write_table)
 
@@ -65,19 +64,11 @@ def main():
                 args.model, "khop2")
             results.append(r)
 
-    # predicted multi-chip epoch from real-chip stage calibration
-    # (exp/common/predict.py; run tools/calibrate_cost_model.py on the
-    # chip first). Raw wall-clock on --cpu-mesh is labeled invalid.
-    sig = config_sig(args.model, args.synthetic_nodes, args.batch_size,
-                     (5, 10, 15),
-                     {"gcn": "khop2", "graphsage": "khop0",
-                      "pinsage": "random_walk"}.get(args.model, "khop2"))
-    annotate_prediction(results, sig)
+    # raw wall-clock on --cpu-mesh is labeled invalid
     meta = cpu_mesh_meta(max(args.worker_counts)) if args.cpu_mesh else None
     write_table(
         results,
-        ["system", "workers", "num_step", "epoch_time", "epoch_time:min",
-         "pred_epoch_time"],
+        ["system", "workers", "num_step", "epoch_time", "epoch_time:min"],
         os.path.join(HERE, "fig14.dat"), meta=meta,
     )
     write_json(results, os.path.join(HERE, "fig14.json"), meta=meta)

@@ -15,8 +15,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from exp.common.predict import (MODEL_SAMPLE_TYPE, annotate_prediction,
-                               config_sig)
+from fgnn_tpu.config import MODEL_SAMPLE_TYPE
 from exp.common.runner import (cpu_mesh_meta, run_app, write_json,
                                write_table)
 
@@ -62,16 +61,12 @@ def main():
             args.model, "khop2")
         results.append(r)
 
-    sig = config_sig(args.model, args.synthetic_nodes, args.batch_size,
-                     (5, 10, 15),
-                     MODEL_SAMPLE_TYPE.get(args.model, "khop2"))
-    annotate_prediction(results, sig)
     meta = (cpu_mesh_meta(max(args.trainer_counts) + 1)
             if args.cpu_mesh else None)
     write_table(
         results,
         ["split", "num_step", "sample_time", "copy_time", "train_time",
-         "epoch_time", "pred_epoch_time"],
+         "epoch_time"],
         os.path.join(HERE, "fig15.dat"), meta=meta,
     )
     write_json(results, os.path.join(HERE, "fig15.json"), meta=meta)

@@ -73,6 +73,10 @@ def main():
     p.add_argument("--cpu-mesh", action="store_true")
     args = p.parse_args()
 
+    from fgnn_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
+
     if args.cpu_mesh:
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")

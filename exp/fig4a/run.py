@@ -16,7 +16,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from exp.common.runner import (cpu_mesh_meta, run_app, tunnel_meta,
+from exp.common.runner import (cpu_mesh_meta, run_app,
                                write_json, write_table)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -59,7 +59,7 @@ def main():
         results.append(r)
 
     meta = (cpu_mesh_meta(8) if getattr(args, 'cpu_mesh', False)
-            else tunnel_meta())
+            else None)
     write_table(
         results,
         ["cache_percentage", "cache_hit_rate", "copy_time", "extract_time",

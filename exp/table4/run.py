@@ -13,8 +13,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from exp.common.predict import (MODEL_SAMPLE_TYPE, annotate_prediction,
-                               config_sig)
+from fgnn_tpu.config import MODEL_SAMPLE_TYPE
 from exp.common.runner import (cpu_mesh_meta, run_app, write_json,
                                write_table)
 
@@ -81,17 +80,11 @@ def main():
                     r.values[k] = rp.values[k]
             results.append(r)
 
-    st_map = MODEL_SAMPLE_TYPE
-    for model in args.models:
-        sig = config_sig(model, args.synthetic_nodes, args.batch_size,
-                         (5, 10, 15), st_map.get(model, "khop2"))
-        annotate_prediction(
-            [r for r in results if r.config["model"] == model], sig)
     meta = cpu_mesh_meta(8) if args.cpu_mesh else None
     write_table(results,
                 ["model", "run_arch", "num_step", "epoch_time",
                  "sample_time", "copy_time", "extract_time", "train_time",
-                 "init_time", "pred_epoch_time"],
+                 "init_time"],
                 os.path.join(HERE, "table4.dat"), meta=meta)
     write_json(results, os.path.join(HERE, "table4.json"), meta=meta)
 

@@ -13,8 +13,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from exp.common.predict import (MODEL_SAMPLE_TYPE, annotate_prediction,
-                               config_sig)
+from fgnn_tpu.config import MODEL_SAMPLE_TYPE
 from exp.common.runner import (cpu_mesh_meta, run_app, write_json,
                                write_table)
 
@@ -87,15 +86,10 @@ def main():
                 r.values[k] = rp.values[k]
         results.append(r)
 
-    st_map = MODEL_SAMPLE_TYPE
-    sig = config_sig(args.model, args.synthetic_nodes, args.batch_size,
-                     (5, 10, 15), st_map.get(args.model, "khop2"))
-    annotate_prediction(results, sig)
     meta = cpu_mesh_meta(args.num_workers) if args.cpu_mesh else None
     write_table(results,
                 ["split", "num_step", "epoch_time", "epoch_time:min",
-                 "sample_time", "copy_time", "extract_time", "train_time",
-                 "pred_epoch_time"],
+                 "sample_time", "copy_time", "extract_time", "train_time"],
                 os.path.join(HERE, "table5.dat"), meta=meta)
     write_json(results, os.path.join(HERE, "table5.json"), meta=meta)
 

@@ -1,9 +1,10 @@
-"""fgnn_tpu — TPU-native factored sample-based GNN training framework.
+"""fgnn_tpu — factored sample-based GNN training framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of GNNLab/FGNN
-(SJTU-IPADS/fgnn-artifacts, EuroSys'22): factored sampler/trainer chip
-roles over a device mesh, pre-sampling-based HBM feature cache, and
-segment-sum message passing. See SURVEY.md for the blueprint.
+A from-scratch JAX/XLA re-design of GNNLab/FGNN
+(SJTU-IPADS/fgnn-artifacts, EuroSys'22) that runs on NVIDIA GPUs:
+factored sampler/trainer device roles over a device mesh, a
+pre-sampling-ranked device feature cache, and mask-aware message passing.
+See SURVEY.md for the blueprint.
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,7 @@ DoGPUSampleDyCache / DoDynamicCacheFeatureCopy (cuda_loops.cc:269-498,
 step* with the previous batch's gathered features — exploiting
 batch-to-batch overlap of input nodes.
 
-TPU redesign: the cache state is a pytree carried between steps — the
+Design: the cache state is a pytree carried between steps — the
 previous batch's (sorted ids, permutation, features) all device-resident;
 membership is a searchsorted against the sorted ids (replacing the
 rebuilt GPU hashtable), and the combine is gather-only like the static
@@ -25,12 +25,13 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..utils import pytree_dataclass
 
 INT_MAX = jnp.iinfo(jnp.int32).max
 
 
-@struct.dataclass
+@pytree_dataclass
 class DynCacheState:
     ids_sorted: jnp.ndarray   # [cap] int32, ascending, INT_MAX padded
     row: jnp.ndarray          # [cap] int32: feats row for ids_sorted[i]

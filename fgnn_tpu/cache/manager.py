@@ -1,11 +1,12 @@
-"""HBM feature cache manager.
+"""Device feature cache manager.
 
 Analog of GPUCacheManager / DistCacheManager
 (cuda/cuda_cache_manager_{host.cc,device.cu}, dist/dist_cache_manager_*):
 the hottest ``cache_percentage * num_node`` vertices' features live in
-trainer HBM; misses are gathered host-side and merged on device.
+trainer device memory; misses are gathered host-side and merged on
+device.
 
-TPU redesign of the count/scan/compact index kernels
+Redesign of the count/scan/compact index kernels
 (cuda_cache_manager_device.cu:266-338): the miss/hit split is a stable
 argsort on the hit flag (misses first), and the final combine is pure
 gathers — ``out[i] = hit[i] ? cache_data[slot[i]] : miss_feat[rank[i]]``
@@ -16,15 +17,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-from ..utils import Timer, get_logger
+from ..utils import Timer, get_logger, pytree_dataclass
 from ..utils.profiler import Profiler
 
 log = get_logger(__name__)
 
 
-@struct.dataclass
+@pytree_dataclass
 class MissCacheIndex:
     """DoGetCacheMissIndex output (dist_loops.cc:271-323 analog): the split
     shipped from sampler to trainer so the trainer never touches the full
@@ -96,7 +96,7 @@ class FeatureCache:
         # empty-feat fake table (smaller than the graph): index modulo,
         # like GPUMockExtract (cuda_extraction.cu:51-72). The mode is an
         # EXPLICIT flag — a short feature matrix without it is corrupt
-        # data, not a mock (ADVICE r2).
+        # data, not a mock.
         if feat_host.shape[0] < num_node and not empty_feat:
             raise ValueError(
                 f"feature matrix has {feat_host.shape[0]} rows for "
@@ -168,8 +168,7 @@ class FeatureCache:
         """Bucketed miss upload: fetch only a power-of-2 slice of the miss
         ids, host-gather, and H2D that bucket — NOT the full unique cap.
         At papers100M caps the cap-padded upload is ~230MB/step while the
-        real misses at 98.8% hit are ~1MB; this was the entire cache-mode
-        epoch cost (772s -> see PERF.md round 3). A handful of bucket
+        real misses at a ~99% hit rate are ~1MB. A handful of bucket
         shapes keeps combine()'s compile cache small (combine's
         clip-mode take accepts any miss row count >= num_miss).
 
@@ -195,9 +194,7 @@ class FeatureCache:
         out = (jax.device_put(miss, device) if device is not None
                else jax.device_put(miss))
         if tracing:
-            from ..utils import force_done
-
-            force_done(out)
+            jax.block_until_ready(out)
             prof.trace_event(trace_key, "kL3Event_Copy_CacheCopy_CopyMiss",
                              t._start * 1e6, Timer.now_us())
         return out, num_miss

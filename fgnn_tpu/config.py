@@ -1,8 +1,8 @@
 """Run configuration.
 
-TPU-native analog of the reference's all-static ``RunConfig``
-(/root/reference/samgraph/common/run_config.{h,cc}) and the builtin arch
-table (/root/reference/samgraph/common/__init__.py:97-132). Instead of a
+Analog of the reference's all-static ``RunConfig``
+(samgraph/common/run_config.{h,cc}) and the builtin arch table
+(samgraph/common/__init__.py:97-132). Instead of a
 mutable global we use a frozen dataclass passed explicitly; enums mirror the
 reference's (common.h:38-92) so configs translate one-to-one.
 """
@@ -39,6 +39,16 @@ class SampleType(enum.Enum):
         )
 
 
+# default sampler of each model family, shared by the training app
+# (examples/train_gnn.py) and the exp/ runners
+MODEL_SAMPLE_TYPE = {
+    "gcn": "khop2",
+    "graphsage": "khop0",
+    "pinsage": "random_walk",
+    "gat": "khop2",
+}
+
+
 class CachePolicy(enum.Enum):
     """Mirror of CachePolicy (common.h:70-80)."""
 
@@ -55,13 +65,15 @@ class CachePolicy(enum.Enum):
 class RunArch(enum.Enum):
     """Mirror of RunArch arch0-7 (common.h:47-56, __init__.py:97-132).
 
-    On TPU, "GPU" roles become chip/mesh-slice roles:
-      ARCH0: host (CPU) sampling + chip training, one process.
-      ARCH1: sample + extract + train all on one chip.
-      ARCH2/3: sampler chip + trainer chip, host-mediated extraction.
-      ARCH5: FGNN factored — dedicated sampler chips + trainer chips with
-             an on-device task queue (the flagship).
-      ARCH6: SGNN — every chip samples AND trains (space-shared baseline).
+    The reference's per-GPU process roles become device/mesh roles inside
+    one process:
+      ARCH0: host (CPU) sampling + device training.
+      ARCH1: sample + extract + train all on one device.
+      ARCH2/3: sampler device + trainer device, host-mediated extraction.
+      ARCH5: FGNN factored — dedicated sampler devices + trainer devices
+             with an on-device task queue (the flagship).
+      ARCH6: SGNN — every device samples AND trains (space-shared
+             baseline).
     """
 
     ARCH0 = 0
@@ -132,7 +144,7 @@ class RunConfig:
     compute_dtype: str = "bfloat16"
 
     # checkpoint/resume (idiomatic upgrade — the reference has none,
-    # SURVEY.md §5.4; orbax-backed)
+    # SURVEY.md §5.4; NumPy archives, train/checkpoint.py)
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0          # save every N epochs; 0 = off
 

@@ -1,7 +1,7 @@
 """Framework-wide constants.
 
-TPU-native analog of the reference's ``samgraph/common/constant.{h,cc}``
-(see /root/reference/samgraph/common/constant.cc:23-68). We keep the same
+Analog of the reference's ``samgraph/common/constant.{h,cc}``
+(samgraph/common/constant.cc:23-68). We keep the same
 on-disk dataset file names and meta keys so datasets produced by the
 reference's ``datagen/`` tooling load unchanged.
 """
@@ -54,7 +54,7 @@ ENV_DATASET_ROOT = "FGNN_TPU_DATASET_ROOT"
 # Numeric constants
 # ---------------------------------------------------------------------------
 # Sentinel for "no entry" (constant.h:71 kEmptyKey = 0xffffffff). We use
-# int32 ids on TPU (32-bit lane-friendly); -1 is the padding sentinel in all
+# int32 ids on the device; -1 is the padding sentinel in all
 # sampled-edge and unique-node buffers.
 EMPTY_KEY = -1
 

@@ -1,6 +1,6 @@
 """Dataset schema.
 
-TPU-native analog of ``struct Dataset`` (reference common.h:157-184): a CSR
+Analog of ``struct Dataset`` (reference common.h:157-184): a CSR
 graph with features/labels/splits plus optional weighted-sampling tables and
 cache rankings. Host-side arrays are NumPy (possibly mmap-backed, read-only);
 device residency is decided later by the engine (arch-dependent placement,
@@ -22,7 +22,7 @@ class Dataset:
     num_class: int
 
     # graph topology: CSR over int32 ids (reference IdType=uint32, common.h:35;
-    # we use int32 — TPU-friendly, EMPTY_KEY=-1 sentinel).
+    # we use int32 with the EMPTY_KEY=-1 sentinel).
     indptr: np.ndarray       # [num_node + 1] int
     indices: np.ndarray      # [num_edge] int32
 

@@ -23,7 +23,7 @@ from .ops.reference_impl import calibrate_caps, np_sample_hop_vec
 from .ops.sampling import Block, SampledBatch
 from .parallel.shuffler import EpochShuffler
 from .train.loop import create_train_state, make_train_step, masked_cross_entropy
-from .utils import Timer, force_done, get_logger
+from .utils import Timer, get_logger
 from .utils.profiler import Profiler
 
 log = get_logger(__name__)
@@ -432,7 +432,7 @@ class HostSamplingEngine:
             prof.log_step(skey, "L2_extract_time", et)
             prof.log_epoch_add(epoch, "epoch_extract_time", et)
             if cfg.profile_level >= 2:
-                force_done(feats)
+                jax.block_until_ready(feats)
             ct = t.passed()
             prof.log_step(skey, "L1_copy_time", ct + et)
             prof.log_epoch_add(epoch, "epoch_copy_time", ct)
@@ -446,7 +446,7 @@ class HostSamplingEngine:
                 self.state, batch, feats, labels, key
             )
             if cfg.profile_level >= 2:
-                force_done(loss)  # true train-stage time, not dispatch
+                jax.block_until_ready(loss)  # true train-stage time, not dispatch
             losses.append(loss)
             accs.append(acc)
             tt = t.passed()

@@ -2,9 +2,11 @@
 
 These replace DGL's ``update_all(fn.u_mul_e/copy_u, fn.sum/mean)`` message
 passing used by the reference models (example/samgraph/multi_gpu/train_*.py)
-with `jax.ops.segment_sum`-based aggregation, which XLA lowers to efficient
-sorted-scatter on TPU. Padded edges scatter into a trash row that is sliced
-off, so no branching on dynamic edge counts is needed.
+with mask-aware aggregation: a dense reshape+reduce for REGULAR blocks
+(fixed slots per destination), `jax.ops.segment_sum` otherwise. Padded
+edges scatter into a trash row that is sliced off, so no branching on
+dynamic edge counts is needed. On a GPU, segment_sum lowers to an atomic
+scatter-add, whose summation order is not fixed.
 """
 from __future__ import annotations
 
@@ -49,8 +51,7 @@ def segment_agg(
     K = block.slots_per_dst
     if K is not None and mask.shape[0] == dst_cap * K:
         # REGULAR block: dst d owns slots [d*K, (d+1)*K) — aggregation is
-        # a dense reshape+reduce (VPU), no scatter. TPU scatter-add at 2M
-        # edges costs ~40x more than this form.
+        # a dense reshape+reduce with a fixed summation order, no scatter
         D = messages.shape[-1]
         m = mask.reshape(dst_cap, K)
         if mode == "weighted_mean":

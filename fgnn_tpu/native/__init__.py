@@ -1,45 +1,67 @@
 """ctypes bindings for the native host runtime (libfgnn_host.so).
 
-Falls back to NumPy implementations when the shared object has not been
-built (``make -C fgnn_tpu/native``). The native paths matter at
-papers100M scale where the host feature gather is on the critical path
-(reference: cpu_extraction.cc with OpenMP).
+The shared object is built with ``make`` at first use, from the committed
+sources, into ``build/libfgnn_host-<key>.so`` (gitignored). The key hashes
+``fgnn_host.cpp``, the Makefile and the build host (the Makefile compiles
+with -march=native), so a binary from another source tree or another
+machine is never loaded: a changed source or a new host builds anew.
+Falls back to NumPy implementations when the build fails. The native
+paths matter at papers100M scale where the host feature gather is on the
+critical path (reference: cpu_extraction.cc with OpenMP).
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 from typing import Optional
 
 import numpy as np
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "libfgnn_host.so")
+_DIR = os.path.dirname(os.path.abspath(__file__))
 _lib: Optional[ctypes.CDLL] = None
-
-
 _build_attempted = False
+
+
+def lib_path() -> str:
+    """Where the shared object for these sources on this host lives."""
+    h = hashlib.sha256()
+    for name in ("fgnn_host.cpp", "Makefile"):
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(f.read())
+    h.update(f"{platform.node()} {platform.machine()}".encode())
+    return os.path.join(_DIR, "build",
+                        f"libfgnn_host-{h.hexdigest()[:16]}.so")
+
+
+def _make(path: str) -> bool:
+    """Build ``path``; the object appears there whole or not at all."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            ["make", "-C", _DIR, f"OUT={tmp}"],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, path)
+    except (subprocess.SubprocessError, OSError):
+        return False
+    return True
 
 
 def _try_load() -> Optional[ctypes.CDLL]:
     global _lib, _build_attempted
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        # .so files are gitignored — compile once on first use
+    path = lib_path()
+    if not os.path.exists(path):
         if _build_attempted:
             return None
         _build_attempted = True
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.dirname(__file__)],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
+        if not _make(path):
             return None
-        if not os.path.exists(_LIB_PATH):
-            return None
-    lib = ctypes.CDLL(_LIB_PATH)
+    lib = ctypes.CDLL(path)
     i64 = ctypes.c_int64
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -48,42 +70,25 @@ def _try_load() -> Optional[ctypes.CDLL]:
     lib.fgnn_gather_f32_partial.argtypes = [f32p, i64, i64, i32p, i64, i64, f32p]
     lib.fgnn_count_freq.argtypes = [i32p, i64, i64, i64p]
     lib.fgnn_rank_desc.argtypes = [i64p, i64, i32p]
-    try:
-        lib.fgnn_sample_khop.argtypes = [
-            i64p, i32p, i32p, i64, i64, ctypes.c_uint64,
-            ctypes.c_int32, i32p,
-        ]
-        f64p = ctypes.POINTER(ctypes.c_double)
-        lib.fgnn_sample_weighted_khop.argtypes = [
-            i64p, i32p, f64p, i32p, i64, i64, ctypes.c_uint64,
-            ctypes.c_int32, i32p,
-        ]
-        lib.fgnn_sample_random_walk.argtypes = [
-            i64p, i32p, i32p, i64, i64, i64, ctypes.c_float, i64,
-            ctypes.c_uint64, i32p, f32p,
-        ]
-        lib.fgnn_dedup_remap.argtypes = [
-            i32p, i64, i32p, i64, i64, i32p, i32p,
-        ]
-        lib.fgnn_dedup_remap.restype = i64
-    except AttributeError:
-        pass  # stale .so without the samplers — python fallback used
+    lib.fgnn_sample_khop.argtypes = [
+        i64p, i32p, i32p, i64, i64, ctypes.c_uint64,
+        ctypes.c_int32, i32p,
+    ]
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.fgnn_sample_weighted_khop.argtypes = [
+        i64p, i32p, f64p, i32p, i64, i64, ctypes.c_uint64,
+        ctypes.c_int32, i32p,
+    ]
+    lib.fgnn_sample_random_walk.argtypes = [
+        i64p, i32p, i32p, i64, i64, i64, ctypes.c_float, i64,
+        ctypes.c_uint64, i32p, f32p,
+    ]
+    lib.fgnn_dedup_remap.argtypes = [
+        i32p, i64, i32p, i64, i64, i32p, i32p,
+    ]
+    lib.fgnn_dedup_remap.restype = i64
     _lib = lib
     return lib
-
-
-def build(force: bool = False) -> bool:
-    """Compile the shared object in place. Returns True on success."""
-    if os.path.exists(_LIB_PATH) and not force:
-        return True
-    try:
-        subprocess.run(
-            ["make", "-C", os.path.dirname(__file__)],
-            check=True, capture_output=True,
-        )
-        return _try_load() is not None
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return False
 
 
 def available() -> bool:

@@ -1,6 +1,6 @@
 // Native host runtime for fgnn_tpu.
 //
-// TPU-native analog of the reference's OpenMP host paths:
+// Analog of the reference's OpenMP host paths:
 //   * cpu_extraction.cc  — parallel feature gather from the (mmap) feature
 //     matrix into a pinned staging buffer (DoCPUFeatureExtract hot path)
 //   * pre_sampler.cc     — per-node access frequency counting

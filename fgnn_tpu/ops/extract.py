@@ -5,7 +5,7 @@ Analogs of the reference's extraction kernels:
   * mock extract            — cuda_extraction.cu:51-72 (SAMGRAPH_EMPTY_FEAT)
   * host (CPU) gather       — cpu_extraction.cc (OpenMP gather)
 
-On TPU the interesting split is HBM-resident vs host-resident features; the
+The interesting split is device-resident vs host-resident features; the
 cache manager (fgnn_tpu.cache.manager) composes these into the miss/hit
 merge of DoCacheFeatureCopy.
 """

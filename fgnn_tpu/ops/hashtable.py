@@ -1,9 +1,9 @@
 """Dedup + dense renumbering.
 
-TPU-native replacement for the reference's GPU ``OrderedHashTable``
-(/root/reference/samgraph/common/cuda/cuda_hashtable.{cu,h}): instead of an
-open-addressing table with version counters, we use XLA sort/unique — the
-idiomatic (and MXU/VPU-friendly) way to dedup on TPU. Semantics preserved:
+Replacement for the reference's GPU ``OrderedHashTable``
+(samgraph/common/cuda/cuda_hashtable.{cu,h}): instead of an
+open-addressing table with version counters, we use XLA sort/unique —
+static shapes, no atomics, deterministic. Semantics preserved:
 
 * ``FillWithUnique(seeds)`` — seeds get local ids [0, n_seed) in *input
   order* (cuda_hashtable.cu FillWithUnique), so layer-(l+1) seeds are a
@@ -113,8 +113,7 @@ def unique_and_remap(
     cummin, then one extra (key,value) sort aligns counts with local ids
     — new leaders' locals are consecutive in sorted order, so sorting by
     leader-local IS the compaction). This replaces a [E]-sized
-    scatter-add (``out_degrees``) that measured as the slowest primitive
-    on TPU (models/aggregate.py docstring).
+    scatter-add (``out_degrees``).
     """
     S = seeds.shape[0]
     E = neighbors.shape[0]
@@ -208,11 +207,10 @@ def unique_and_remap_direct(
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Sort-free FillWithDuplicates + GPUMapEdges via a direct-index table.
 
-    TPU analog of the reference's ``SXN_NAIVE_HASHMAP`` direct-index
+    Analog of the reference's ``SXN_NAIVE_HASHMAP`` direct-index
     OrderedHashTable variant (cuda_hashtable.h:70-94): a [num_node]
-    scratch in HBM replaces the O((S+E) log^2) XLA sort with O(N + E)
-    scatter/gather/cumsum — at 1M nodes / 2M sampled edges this is the
-    difference between ~40ms and a few ms per hop. Memory: 4B * num_node
+    scratch in device memory replaces the O((S+E) log^2) XLA sort with
+    O(N + E) scatter/gather/cumsum. Memory: 4B * num_node
     per call (alive only inside the fused program); use the sort-based
     :func:`unique_and_remap` for graphs where that scratch doesn't fit.
 

@@ -1,8 +1,8 @@
 """Static-shape planning.
 
 XLA requires static shapes; every reference stage instead produces
-data-dependent sizes (num_sample, num_unique, num_miss). This module is the
-TPU answer: the analog of ``PredictNumNodes`` (reference common.h:244-250)
+data-dependent sizes (num_sample, num_unique, num_miss). This module is
+the static-shape answer: the analog of ``PredictNumNodes`` (reference common.h:244-250)
 computes *padded maxima* per layer once at trace time; all kernels then work
 on fixed-size buffers with ``-1`` (EMPTY_KEY) padding masks.
 
@@ -28,8 +28,7 @@ def _bucket_up(x: int, steps_per_octave: int) -> int:
 
     Compile-time shape bucketing: measured caps differ slightly across
     nearby configs (seed, skew, calibration probes), and every distinct
-    cap is a distinct XLA program — minutes per compile on the remote TPU
-    path. Bucketing trades bounded padding overhead (<= 2^(1/steps)-1,
+    cap is a distinct XLA program. Bucketing trades bounded padding overhead (<= 2^(1/steps)-1,
     e.g. 19% at 4 steps/octave, 9% at 8) for program reuse."""
     import math
 
@@ -59,8 +58,8 @@ class SamplePlan:
     # tier's width), every lower tier takes ALL its <= width neighbors
     # (distribution-identical for uniform-without-replacement). Cuts
     # edge-slot padding (a flat V*fanout cap is ~33%-occupied at bench
-    # shapes) and with it the row-rate-bound CSR/feature gathers that
-    # dominate the step (PERF.md round 5). ``tier_layout`` is a tuple of
+    # shapes) and with it the CSR/feature gathers of every padded slot.
+    # ``tier_layout`` is a tuple of
     # (vertex_cap, slot_width) pairs, caps summing to the frontier cap.
     tier_layout: Optional[Tuple[Tuple[int, int], ...]] = None
 
@@ -105,7 +104,7 @@ def make_plan(
 
     ``FGNN_TPU_CAP_BUCKET=<steps/octave>`` (opt-in) rounds measured caps
     up to a coarse geometric grid so nearby configs share compiled
-    programs (remote TPU compiles are minutes each); 0/unset keeps exact
+    programs; 0/unset keeps exact
     128-aligned caps.
     """
     import os

@@ -4,10 +4,10 @@ Reference: cuda_sampling_random_walk.cu:43-160 (walks; ``restart_prob``
 actually *terminates* a walk early) + FrequencyHashmap::GetTopK
 (cuda_frequency_hashmap.cu — 1370 LoC of cub radix-sort machinery).
 
-TPU design: walks are a `lax.scan` over walk steps with a [n_seed, W]
+Design: walks are a `lax.scan` over walk steps with a [n_seed, W]
 frontier; top-K replaces the GPU hash+radix-sort pipeline with dense
 per-row O(M^2) duplicate counting over the tiny M = W*L visit buffer
-(default 4*3 = 12) followed by `lax.top_k` — branch-free, fully on the VPU.
+(default 4*3 = 12) followed by `lax.top_k` — branch-free, static shapes.
 """
 from __future__ import annotations
 

@@ -1,10 +1,10 @@
-"""Pure-NumPy reference sampler.
+"""Pure-NumPy references: sampler, cap calibration, conv-layer goldens.
 
 Golden model for tests (SURVEY.md §4 implication: golden numerics vs a
 pure-NumPy reference) and the cap-calibration oracle: the engine runs a few
 NumPy sampling steps to measure realistic per-hop unique/edge counts, which
 bound the static padded shapes (SamplePlan) far below the multiplicative
-worst case — the TPU analog of PredictNumNodes (common.h:244-250).
+worst case — the measured analog of PredictNumNodes (common.h:244-250).
 """
 from __future__ import annotations
 
@@ -169,3 +169,81 @@ def calibrate_caps(
     if tier_candidates is not None:
         return caps, tier_obs
     return caps
+
+
+# ---------------------------------------------------------------------------
+# NumPy conv-layer goldens (edge loops, no shared code with fgnn_tpu.models)
+#
+# DGL semantics of the reference's models (tests/test_model_golden.py
+# lists them); each golden takes a padded Block and the src-space
+# features and returns the dst rows.
+# ---------------------------------------------------------------------------
+
+def edges_of(block):
+    """(src_local, dst_local, weights) of a block's real edges, on the host."""
+    m = np.asarray(block.mask)
+    return (np.asarray(block.src_local)[m], np.asarray(block.dst_local)[m],
+            None if block.weights is None else np.asarray(block.weights)[m])
+
+
+def golden_graphconv(block, h, dst_cap, W, b):
+    src, dst, _ = edges_of(block)
+    feat = h @ W
+    src_cap = h.shape[0]
+    outdeg = np.zeros(src_cap)
+    indeg = np.zeros(dst_cap)
+    for s, d in zip(src, dst):
+        outdeg[s] += 1
+        indeg[d] += 1
+    feat = feat / np.sqrt(np.maximum(outdeg, 1.0))[:, None]
+    rst = np.zeros((dst_cap, W.shape[1]))
+    for s, d in zip(src, dst):
+        rst[d] += feat[s]
+    rst = rst / np.sqrt(np.maximum(indeg, 1.0))[:, None]
+    return rst + b
+
+
+def golden_sageconv(block, h, dst_cap, Ws, bs, Wn):
+    src, dst, _ = edges_of(block)
+    agg = np.zeros((dst_cap, h.shape[1]))
+    cnt = np.zeros(dst_cap)
+    for s, d in zip(src, dst):
+        agg[d] += h[s]
+        cnt[d] += 1
+    agg = agg / np.maximum(cnt, 1.0)[:, None]
+    return (h[:dst_cap] @ Ws + bs) + agg @ Wn
+
+
+def golden_weighted_sage(block, h, dst_cap, Q, bQ, W, bW):
+    src, dst, w = edges_of(block)
+    n = np.maximum(h @ Q + bQ, 0.0)
+    agg = np.zeros((dst_cap, n.shape[1]))
+    ws = np.zeros(dst_cap)
+    for s, d, wi in zip(src, dst, w):
+        agg[d] += wi * n[s]
+        ws[d] += wi
+    agg = agg / np.maximum(ws, 1.0)[:, None]
+    z = np.maximum(np.concatenate([agg, h[:dst_cap]], axis=1) @ W + bW, 0.0)
+    norm = np.linalg.norm(z, axis=1, keepdims=True)
+    norm[norm == 0.0] = 1.0
+    return z / norm
+
+
+def golden_gatconv(block, h, dst_cap, W, attn_l, attn_r, slope=0.2):
+    src, dst, _ = edges_of(block)
+    H, D = attn_l.shape[1], attn_l.shape[2]
+    feat = (h @ W).reshape(-1, H, D)
+    el = np.sum(feat * attn_l, axis=-1)   # [src_cap, H]
+    er = np.sum(feat * attn_r, axis=-1)
+    e = el[src] + er[dst]                 # [E, H]
+    e = np.where(e > 0, e, slope * e)     # leaky relu
+    out = np.zeros((dst_cap, H, D))
+    for d in range(dst_cap):
+        sel = dst == d
+        if not sel.any():
+            continue
+        ed = e[sel]                       # [k, H]
+        a = np.exp(ed - ed.max(axis=0, keepdims=True))
+        a = a / a.sum(axis=0, keepdims=True)
+        out[d] = np.einsum("kh,khd->hd", a, feat[src[sel]])
+    return out

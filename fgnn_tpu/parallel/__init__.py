@@ -3,7 +3,7 @@ from .mesh import RoleMesh, make_role_mesh, make_data_mesh
 
 
 def __getattr__(name):
-    # engines import jax/flax lazily — keep `import fgnn_tpu.parallel` light
+    # engines import lazily — keep `import fgnn_tpu.parallel` light
     if name == "FactoredEngine":
         from .factored import FactoredEngine
         return FactoredEngine

@@ -4,9 +4,9 @@ Reference: example/samgraph/multi_gpu/async/train_graphsage.py — trainers
 skip the per-step DDP all-reduce; each GPU steps a local optimizer and
 lazily folds its updates into a shared CPU model (cpu_optimizer.step()).
 
-TPU-native design: hogwild-style shared host memory has no ICI analog, so
+Design: hogwild-style shared host memory has no device-mesh analog, so
 we use the idiomatic equivalent — local SGD with periodic averaging. Each
-trainer chip holds its own (params, opt_state) replica laid out as a
+trainer device holds its own (params, opt_state) replica laid out as a
 leading 'data'-sharded axis; the train wave vmaps the whole optimizer step
 per replica with NO cross-chip collective. Every ``async_sync_every``
 groups a single all-reduce averages the replicas (sync_every=1 degrades to

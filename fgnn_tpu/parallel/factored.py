@@ -2,8 +2,8 @@
 
 FactoredEngine = arch5 (FGNN proper, dist_engine.cc + dist_loops_arch5.cc):
 dedicated sampler chips produce batches in SPMD waves; batches cross to the
-trainer submesh (device_put over ICI — the MemoryQueue analog); trainer
-chips run data-parallel training with gradient all-reduce over the 'data'
+trainer submesh (a device-to-device device_put — the MemoryQueue analog);
+trainer chips run data-parallel training with gradient all-reduce over the 'data'
 mesh axis (replacing torch DDP/NCCL, train_gcn.py:223-242).
 
 SGNNEngine = arch6 (the T_SOTA space-shared baseline,
@@ -43,6 +43,7 @@ from ..ops.random_walk import random_walk_topk
 from ..ops.reference_impl import calibrate_caps
 from ..ops.sampling import CSRGraph, multi_layer_sample
 from ..parallel.mesh import make_data_mesh, make_role_mesh
+from ..placement import feat_budget, features_fit
 from ..parallel.shuffler import (
     AlignedDistShuffler,
     DistShuffler,
@@ -54,7 +55,7 @@ from ..train.loop import (
     make_eval_step,
     masked_cross_entropy,
 )
-from ..utils import Timer, force_done, get_logger
+from ..utils import Timer, get_logger
 from ..utils.profiler import Profiler
 
 log = get_logger(__name__)
@@ -226,7 +227,7 @@ class FactoredEngine(_EngineBase):
         # --- sampler side (SampleInit analog, dist_engine.cc:231-364) ----
         t_copy = Timer()
         self.graph_s = _put_graph(ds, cfg, self.roles.sampler_replicated)
-        force_done(self.graph_s.indices)
+        jax.block_until_ready(self.graph_s.indices)
         copy_s += t_copy.passed()
 
         def sample_wave(graph, keys, seeds, nums):
@@ -290,9 +291,12 @@ class FactoredEngine(_EngineBase):
             )
 
         # --- trainer side (TrainInit analog, dist_engine.cc:366-465) -----
-        feat_bytes = ds.feat.shape[0] * ds.feat.shape[1] * 4
+        feat_bytes = (ds.feat.shape[0] * ds.feat.shape[1]
+                      * (2 if self.compute_dtype is not None else 4))
         if feat_on_trainer is None:
-            feat_on_trainer = not cfg.use_cache and feat_bytes <= (6 << 30)
+            budget = feat_budget(0, self.roles.trainer_mesh.devices.flat[0])
+            feat_on_trainer = (not cfg.use_cache
+                               and features_fit(feat_bytes, budget))
         self.feat_on_trainer = feat_on_trainer
         repl_t = self.roles.trainer_replicated
         shard_t = self.roles.trainer_sharding
@@ -312,7 +316,7 @@ class FactoredEngine(_EngineBase):
                     np.asarray(self.cache.cache_data), repl_t
                 )
         self.label_t = jax.device_put(np.asarray(ds.label), repl_t)
-        force_done(self.label_t)
+        jax.block_until_ready(self.label_t)
         copy_s += t_copy.passed()
 
         # init params on trainer mesh
@@ -331,7 +335,7 @@ class FactoredEngine(_EngineBase):
         # --- the DP train wave -------------------------------------------
         self.train_wave = self._make_train_wave(repl_t, shard_t, self.label_t)
 
-        # --- checkpoint/resume (orbax; reference has none) ---------------
+        # --- checkpoint/resume (reference has none) ----------------------
         self.ckpt = None
         self.start_epoch = 0
         if cfg.ckpt_dir:
@@ -359,7 +363,8 @@ class FactoredEngine(_EngineBase):
 
         batches/feats/keys have a leading group dim sharded over 'data';
         the mean over that axis gives DDP-style grad all-reduce
-        (train_gcn.py:223-242 analog, psum over ICI instead of NCCL).
+        (train_gcn.py:223-242 analog; XLA emits the all-reduce, NCCL on
+        GPUs).
         Parametrized by shardings so the switcher can build a second wave
         over the enlarged sampler+trainer mesh. The label table enters as
         a jit argument (not a closure constant — HLO size).
@@ -481,7 +486,7 @@ class FactoredEngine(_EngineBase):
             idx = (self.index_wave(wave.input_nodes)
                    if self.index_wave is not None else None)
             if prof_stages:
-                force_done(idx if idx is not None else wave.num_input)
+                jax.block_until_ready(idx if idx is not None else wave.num_input)
                 prof.log_epoch_add(epoch, "epoch_sample_time", t.passed())
                 if prof.trace_enabled:
                     prof.trace_event(len(wave_ovfs) + len(in_flight),
@@ -496,12 +501,12 @@ class FactoredEngine(_EngineBase):
             wave, idx, n_real = in_flight.popleft()
             wave_ovfs.append(wave.overflowed)  # [S] bool, fetched at epoch end
             # cross the sampler->trainer boundary (the "global queue"):
-            # one ICI/device transfer of the whole wave
+            # one device-to-device transfer of the whole wave
             t = Timer() if prof_stages else None
             wave_t = jax.device_put(wave, repl_t)
             idx_t = jax.device_put(idx, repl_t) if idx is not None else None
             if prof_stages:
-                force_done(wave_t.num_input)
+                jax.block_until_ready(wave_t.num_input)
                 prof.log_epoch_add(epoch, "epoch_copy_time", t.passed())
                 # DoGraphCopy analog, keyed by wave ordinal within the epoch
                 prof.log_step(prof.step_key(epoch, len(wave_ovfs) - 1),
@@ -653,7 +658,7 @@ class FactoredEngine(_EngineBase):
         # committed args must match the jit's in_shardings exactly
         stacked, feats = self._prep_group(group, group_size, shard)
         if prof_stages:
-            force_done(feats)
+            jax.block_until_ready(feats)
             prof.log_epoch_add(self._cur_epoch, "epoch_extract_time",
                                t.passed())
             if prof.trace_enabled:
@@ -663,7 +668,7 @@ class FactoredEngine(_EngineBase):
         keys = jax.random.split(key, group_size)
         out = wave(state, stacked, feats, keys)
         if prof_stages:
-            force_done(out[1])  # loss scalar
+            jax.block_until_ready(out[1])  # loss scalar
             prof.log_epoch_add(self._cur_epoch, "epoch_train_time",
                                t.passed())
             if prof.trace_enabled:
@@ -968,7 +973,7 @@ class SGNNEngine(_EngineBase):
             wave = self._p_sample_g(
                 self.graph, keys, jnp.asarray(seeds), jnp.asarray(nums)
             )
-            force_done(wave.num_input)
+            jax.block_until_ready(wave.num_input)
             prof.log_epoch_add(epoch, "epoch_sample_time", t.passed())
             skey = prof.step_key(epoch, local)
             prof.log_step(skey, "L1_sample_time", t.passed())
@@ -978,7 +983,7 @@ class SGNNEngine(_EngineBase):
             ovfs.append(wave.overflowed)
             t.reset()
             feats = self._p_gather_g(self.feat_dev, wave.input_nodes)
-            force_done(feats)
+            jax.block_until_ready(feats)
             prof.log_epoch_add(epoch, "epoch_extract_time", t.passed())
             prof.log_step(skey, "L1_copy_time", t.passed())
             if prof.trace_enabled:
@@ -989,7 +994,7 @@ class SGNNEngine(_EngineBase):
                 self.state, self.label_dev, wave, feats, keys,
                 jnp.asarray(nums),
             )
-            force_done(loss)
+            jax.block_until_ready(loss)
             prof.log_epoch_add(epoch, "epoch_train_time", t.passed())
             prof.log_step(skey, "L1_train_time", t.passed())
             if prof.trace_enabled:

@@ -1,4 +1,4 @@
-"""Factored (arch5) training ACROSS HOSTS — FGNN on a pod.
+"""Factored (arch5) training ACROSS HOSTS.
 
 The reference's core contribution is dedicating whole accelerators to
 either sampling or training (DistEngine::SampleInit/TrainInit,
@@ -14,8 +14,8 @@ Design (jax multi-controller):
   train. Each sampler process runs the sample wave jit over its OWN local
   devices (independent sampler workers, like the reference's per-GPU
   sampler processes); trainer processes share one trainer mesh spanning
-  all trainer-process devices, so the gradient all-reduce rides ICI
-  within a host and DCN across trainer hosts.
+  all trainer-process devices, so the gradient all-reduce rides the
+  intra-host interconnect within a host and the network across hosts.
 * wave transport: ``multihost_utils.broadcast_one_to_all(..., is_source=
   sampler_process)`` — a device-fabric collective over the global mesh
   (the DCN analog of the reference's pinned-shared-memory MessageTaskQueue,
@@ -53,7 +53,7 @@ from ..config import CachePolicy, RunConfig
 from ..data.schema import Dataset
 from ..parallel.shuffler import DistShuffler, EpochShuffler
 from ..train.loop import create_train_state
-from ..utils import Timer, force_done, get_logger
+from ..utils import Timer, get_logger
 from ..utils.profiler import Profiler
 from .factored import FactoredEngine, _put_graph
 from .mesh import RoleMesh
@@ -120,7 +120,7 @@ class MultihostFactoredEngine(FactoredEngine):
         T = len(t_devs)
         # each sampler PROCESS runs an independent local sampler mesh (the
         # reference's per-GPU sampler workers); trainer mesh spans all
-        # trainer-process devices so grad psum rides ICI+DCN
+        # trainer-process devices so the grad all-reduce spans hosts
         my_sampler_devs = (by_proc[self.proc] if self.is_sampler_host
                            else by_proc[0])  # placeholder on trainer hosts
         self.roles = RoleMesh(

@@ -2,11 +2,13 @@
 
 The reference dedicates whole GPUs to sampling or training via
 process-per-GPU roles (DistEngine::SampleInit/TrainInit,
-dist_engine.cc:231-465). The TPU-native equivalent: split the chips of a
-slice into a sampler submesh and a trainer submesh; SPMD computations are
-jitted over each submesh, and batches move between them as device_put
-(ICI) transfers — the on-device analog of FGNN's pinned-shared-memory
-MemoryQueue.
+dist_engine.cc:231-465). Here the devices of one host are split into
+a sampler submesh and a trainer submesh; SPMD computations are jitted
+over each submesh, and batches move between them as device-to-device
+``device_put`` transfers (NVLink between GPUs) — the on-device analog of
+FGNN's pinned-shared-memory MemoryQueue. The device lists are flat: every
+GPU of a host reaches every other at the same rate, so placement follows
+the role split alone.
 """
 from __future__ import annotations
 

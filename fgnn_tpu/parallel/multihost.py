@@ -3,12 +3,12 @@
 The reference is single-machine: its "distribution" is fork + shared
 memory (MemoryQueue, pthread process-shared barrier, and a shared-mmap
 ``ranking_nodes`` that sampler worker 0 fills before trainers init —
-dist_engine.cc:115-127, 323-344). On TPU pods the same capabilities map
-to JAX multi-process primitives:
+dist_engine.cc:115-127, 323-344). Across hosts the same capabilities
+map to JAX multi-process primitives:
 
   fork + shm queue        -> jax.distributed.initialize + global Mesh;
                              batches are globally-sharded arrays, the
-                             runtime moves shards over ICI/DCN
+                             runtime moves shards between devices
   DistSharedBarrier       -> multihost_utils.sync_global_devices
   shared-mmap ranking     -> process 0 presamples, broadcast_one_to_all
   DistShuffler host shard -> identical epoch-seeded permutation on every
@@ -19,11 +19,15 @@ Initialization is env-driven so the same app runs single- or multi-host:
 
   FGNN_TPU_COORDINATOR=host0:port FGNN_TPU_NUM_PROCESSES=N \
   FGNN_TPU_PROCESS_ID=i python examples/train_multihost.py
+
+Each process drives every local GPU by default (one process per host).
+``FGNN_TPU_LOCAL_DEVICE_IDS=0`` (comma-separated ids) gives a process only
+those cards instead, for one process per card.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import jax
 import numpy as np
@@ -51,11 +55,19 @@ def initialize_from_env() -> bool:
         coordinator_address=addr,
         num_processes=int(os.environ["FGNN_TPU_NUM_PROCESSES"]),
         process_id=int(os.environ["FGNN_TPU_PROCESS_ID"]),
+        local_device_ids=local_device_ids_from_env(),
     )
     log.info("multihost: process %d/%d, %d global / %d local devices",
              jax.process_index(), jax.process_count(),
              len(jax.devices()), len(jax.local_devices()))
     return True
+
+
+def local_device_ids_from_env() -> Optional[List[int]]:
+    """The cards this process drives (FGNN_TPU_LOCAL_DEVICE_IDS), or None
+    for all of the host's."""
+    ids = os.environ.get("FGNN_TPU_LOCAL_DEVICE_IDS", "").strip()
+    return [int(i) for i in ids.split(",")] if ids else None
 
 
 def global_data_mesh(axis: str = "data") -> Mesh:

@@ -7,11 +7,11 @@ is done each idle sampler re-registers as a trainer ("switcher") via
 the epoch tail is trained by T+S GPUs, coordinated with forward_barrier
 counters (engine.h:69-76).
 
-TPU-native design: no process choreography — the epoch driver already
+Design: no process choreography — the epoch driver already
 knows when sampling is finished (the wave queue drains), so the tail hook
 simply moves the train state onto a second jitted train wave compiled over
-the FULL sampler+trainer mesh ('data' axis of size S+T). Gradient
-all-reduce rides ICI across all chips; the state hops meshes with a single
+the FULL sampler+trainer mesh ('data' axis of size S+T). The gradient
+all-reduce spans all devices; the state hops meshes with a single
 device_put each way.
 
 How much of the epoch goes to the full mesh is a *scheduling decision the
@@ -40,7 +40,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import RunConfig
 from ..data.schema import Dataset
-from ..utils import Timer, force_done, get_logger
+from ..utils import Timer, get_logger
 from .factored import FactoredEngine
 
 log = get_logger(__name__)
@@ -171,7 +171,7 @@ class SwitcherEngine(FactoredEngine):
             w = self.sample_wave(keys, seeds_w, nums_w)
             ix = (self.index_wave(w.input_nodes)
                   if self.index_wave is not None else None)
-            force_done(ix if ix is not None else w.num_input)
+            jax.block_until_ready(ix if ix is not None else w.num_input)
             return w, ix
 
         one_wave()                      # compile
@@ -195,7 +195,7 @@ class SwitcherEngine(FactoredEngine):
             probe = jax.tree.map(jnp.copy, self.state)  # donation-safe
             out = self._run_group(probe, group, wave_fn, shard, width,
                                   jax.random.fold_in(base, 0xBEEF))
-            force_done(out[1])
+            jax.block_until_ready(out[1])
             best = float("inf")
             for _ in range(3):          # min-of-reps (ADVICE r2): a GC
                 tt = Timer()            # pause in ONE probe would size
@@ -203,7 +203,7 @@ class SwitcherEngine(FactoredEngine):
                     jnp.copy, self.state)
                 out = self._run_group(probe, group, wave_fn, shard, width,
                                       jax.random.fold_in(base, 0xBEEF))
-                force_done(out[1])
+                jax.block_until_ready(out[1])
                 best = min(best, tt.passed())
             return best
 

@@ -18,10 +18,10 @@ maps 1:1:
     sam.report_step_average(epoch, step)
     sam.shutdown()
 
-On TPU the multi-process choreography collapses into one process (mesh
+Here the multi-process choreography collapses into one process (mesh
 roles replace fork-per-GPU), so sample_init/train_init configure roles on
 the engine rather than spawning processes; get_blocks returns our padded
-Block pytrees plus feats/labels ready for a Flax model.
+Block pytrees plus feats/labels ready for the models of fgnn_tpu.models.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 Replaces the reference's torch training loops (example/samgraph/multi_gpu/
 train_*.py:209-416): DGL forward + cross-entropy + Adam + DDP-NCCL
-all-reduce become a single jitted Flax/optax step whose gradient psum rides
-ICI when the step is pjit-ted over a trainer mesh axis (parallel.engine).
+all-reduce become a single jitted optax step whose gradient all-reduce
+XLA inserts when the step is jitted over a trainer mesh axis
+(parallel.factored).
 """
 from __future__ import annotations
 
@@ -12,13 +13,12 @@ from typing import Any, Callable, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
-from flax.core import FrozenDict
 
 from ..ops.sampling import SampledBatch
+from ..utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class TrainState:
     params: Any
     opt_state: Any
@@ -57,7 +57,7 @@ def create_train_state(
     weight_decay: float = 0.0,
 ) -> Tuple[TrainState, optax.GradientTransformation]:
     params = model.init(
-        {"params": rng}, sample_batch, feats, dst_caps, deterministic=True
+        rng, sample_batch, feats, dst_caps, deterministic=True
     )["params"]
     if weight_decay > 0:
         tx = optax.adamw(lr, weight_decay=weight_decay)

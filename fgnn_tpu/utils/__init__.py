@@ -1,2 +1,3 @@
 from .logging import get_logger, log_config, log_test_result
-from .timer import Timer, force_done
+from .pytree import pytree_dataclass, static_field
+from .timer import Timer

@@ -2,9 +2,8 @@
 
 The native extension (fgnn_tpu/native) is optional: a C++/OpenMP host
 runtime for the hot host-side paths (parallel feature gather from mmap,
-frequency counting). Built via `python setup.py build_native` or the
-Makefile in fgnn_tpu/native; pure-NumPy fallbacks keep everything working
-without it.
+frequency counting), built with make at first use (fgnn_tpu/native);
+pure-NumPy fallbacks keep everything working without it.
 """
 from setuptools import find_packages, setup
 
@@ -12,10 +11,10 @@ setup(
     name="fgnn_tpu",
     version="0.1.0",
     description=(
-        "TPU-native factored sample-based GNN training framework "
-        "(GNNLab/FGNN capabilities, JAX/XLA/Pallas)"
+        "Factored sample-based GNN training framework for GPUs "
+        "(GNNLab/FGNN capabilities, JAX/XLA)"
     ),
     packages=find_packages(exclude=("tests",)),
     python_requires=">=3.10",
-    install_requires=["jax", "flax", "optax", "numpy"],
+    install_requires=["jax", "optax", "numpy"],
 )

@@ -3,7 +3,7 @@ reference's rejection loop (cuda_sampling_weighted_khop_hash_dedup.cu:78-111:
 alias draws per vertex, rejecting already-picked neighbors, until `fanout`
 unique picks; deg <= fanout takes all).
 
-Covers all three degree regimes of the TPU implementation:
+Covers all three degree regimes of the static-shape implementation:
   deg <= fanout (take-all), fanout < deg <= 128 (exact Gumbel top-k),
   deg > 128 (oversampled stream + first-k-distinct).
 """

@@ -4,17 +4,17 @@ Mean aggregation is order-invariant within a dst's fanout slots, so
 sorting each 25-slot run is free semantically; this measures whether the
 gather engine rewards piecewise-ascending address streams.
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from fgnn_tpu.utils.compile_cache import use_compile_cache
 
 
 def scan_time(name, body, steps, *args, reps=3):
@@ -25,16 +25,19 @@ def scan_time(name, body, steps, *args, reps=3):
         acc, _ = jax.lax.scan(f, jnp.float32(0), jnp.arange(steps))
         return acc
 
-    float(prog(*args))
+    jax.block_until_ready(prog(*args))
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        float(prog(*args))
+        jax.block_until_ready(prog(*args))
         ts.append(time.perf_counter() - t0)
     print(f"{name:46s} {min(ts)/steps*1e3:8.2f} ms", flush=True)
 
 
 def main():
+    use_compile_cache()
+    d = jax.devices()[0]
+    print(f"# device: {d.platform} {d.device_kind}", flush=True)
     key = jax.random.key(0)
 
     def kof(i):

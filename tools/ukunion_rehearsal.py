@@ -1,4 +1,4 @@
-"""uk-union-scale int64 rehearsal (VERDICT r4 #7).
+"""uk-union-scale int64 rehearsal.
 
 The reference ships uk-2006-05 (77M nodes / 2.9B edges) and a 32to64
 converter (utility/data-process/toolkit/generator/32to64.cc) because a
@@ -6,13 +6,13 @@ converter (utility/data-process/toolkit/generator/32to64.cc) because a
 (tests/test_int64_edges.py) but had never been stood up at scale; this
 tool generates a uk-shaped synthetic with MORE than 2^31 edges (int64
 indptr, disk-backed int32 indices) and runs a real arch0 epoch: native
-OpenMP host sampling over the 64-bit CSR + jitted training on the chip.
-HBM cannot hold an 8.8GB+ topology next to features — host-resident
-topology IS the uk-union operating point (reference arch0/cpu engine).
+OpenMP host sampling over the 64-bit CSR + jitted training on the
+device. Host-resident topology is the reference's uk-union operating
+point (its arch0/cpu engine).
 
 Usage:
   python tools/ukunion_rehearsal.py --gen-only        # host-side, no jax
-  python tools/ukunion_rehearsal.py                   # epoch on the chip
+  python tools/ukunion_rehearsal.py                   # epoch on the device
 """
 import argparse
 import os
@@ -23,7 +23,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-DEFAULT_DIR = "/root/ukunion_ds"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".bench_cache", "ukunion",
+)
 NUM_NODE = 77_000_000
 TARGET_EDGES = 2_300_000_000      # > 2^31 = 2_147_483_648
 
@@ -65,14 +68,9 @@ def generate(out_dir: str, seed: int = 0):
 
 
 def run_epoch(out_dir: str, batch_size: int, train_n: int, num_epoch: int):
-    import jax
+    from fgnn_tpu.utils.compile_cache import use_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    use_compile_cache()
 
     from fgnn_tpu.config import RunArch, RunConfig, SampleType
     from fgnn_tpu.data.schema import Dataset
@@ -111,7 +109,7 @@ def run_epoch(out_dir: str, batch_size: int, train_n: int, num_epoch: int):
               flush=True)
     print(f"test_result:num_edge={int(indptr[-1])}")
     print("# uk-union rehearsal OK: >2^31-edge CSR sampled natively "
-          "(int64 indptr), trained on the chip", flush=True)
+          "(int64 indptr), trained on the device", flush=True)
 
 
 def main():
